@@ -1,12 +1,12 @@
 """Packed-word bitboards as pure JAX functions.
 
-TPU-native re-design of the reference's 192-bit `bitboard{N}` type
+A re-design of the reference's 192-bit `bitboard{N}` type
 (reference: Bitboard.jl:5-216).  Instead of a fixed 3xUInt64 tuple walked by
 scalar loops, a board here is a little-endian vector of uint32 words with a
 static :class:`BoardSpec` describing its geometry; every operation is a pure
 ``jnp`` function over the trailing word axis, so boards broadcast/vmap over
-arbitrary leading batch axes (games, tree nodes, ...) and compile onto the
-TPU VPU as plain int32 lanes.
+arbitrary leading batch axes (games, tree nodes, ...) and compile to plain
+int32 vector code.
 
 Bit layout matches the reference exactly: the board has ``rows x cols`` cells
 stored column-major, cell ``(r, c)`` (0-based) lives at bit ``r + rows * c``
@@ -17,8 +17,7 @@ edge-masking semantics:
 * ``down``/``up`` shift by one bit and clear the wrapped row
   (Bitboard.jl:146-176).
 
-uint32 words (not uint64) because JAX disables x64 by default and 32-bit
-integer lanes are the native VPU width.
+uint32 words (not uint64) because JAX disables x64 by default.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Device-resident replay ring buffer.
 
-TPU-native re-design of the reference's CPU ring of Sample structs
+A device-resident re-design of the reference's CPU ring of Sample structs
 (main4IARow.jl:29-78): one dense array per field, written by masked scatters
 entirely in-graph - no host round-trips during selfplay.  Slot assignment
 preserves the reference's ordering (round-major, then game index) and the

@@ -22,7 +22,7 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="alphatpu", description="TPU-native AlphaZero training"
+        prog="alphatpu", description="AlphaZero training on one or more GPUs"
     )
     p.add_argument("--game", default="connect4",
                    help="tictactoe | connect4 | gobang<N> | hex<N> | "
@@ -58,13 +58,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--continuous", action="store_true",
                    help="continuous selfplay: --samples parallel lanes play "
                         "back-to-back games for --rounds move rounds "
-                        "(~1.5x throughput; finished lanes recycle instantly)")
+                        "(finished lanes recycle instantly)")
     p.add_argument("--rounds", type=int, default=None,
                    help="move rounds per lane in --continuous mode "
                         "(default 2x the game's max length)")
     p.add_argument("--bf16-inference", action="store_true",
-                   help="evaluate the in-search net in bfloat16 (MXU-native;"
-                        " training stays f32)")
+                   help="evaluate the in-search net in bfloat16 (training "
+                        "stays f32)")
     p.add_argument("--fresh-root-policy", action="store_true",
                    help="recompute the root policy after the final backup "
                         "instead of returning the last pre-backup policy "
@@ -87,9 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="call jax.distributed.initialize() before building "
                         "the mesh: run one process per host under your "
-                        "launcher and pass --devices 0 to span the full "
-                        "slice (ICI/DCN collectives handled uniformly by "
-                        "GSPMD)")
+                        "launcher and pass --devices 0 to span every "
+                        "device of every process")
     p.add_argument("--coordinator", default=None,
                    help="with --multihost: coordinator address host:port "
                         "(default: auto-detect from the cluster environment)")
@@ -103,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append per-generation stats as JSON lines")
     p.add_argument("--profile-dir", default=None,
                    help="capture a jax.profiler trace of the first "
-                        "generation into this directory (the TPU-native "
-                        "form of the reference's per-stage timers, "
+                        "generation into this directory (in place of the "
+                        "reference's per-stage timers, "
                         "mcts_gpu.jl:377-459)")
     return p
 
@@ -172,6 +171,9 @@ def main(argv=None) -> int:
 
     import jax
 
+    from .runtime import setup_compile_cache
+
+    setup_compile_cache()
     if args.multihost:
         jax.distributed.initialize(
             coordinator_address=args.coordinator,

@@ -26,7 +26,7 @@ engine must reproduce:
 It consumes injected uniforms, which doubles as the test hook: the
 batched engine is compared node-for-node on the same stream
 (tests/test_mcts.py).  :class:`MctsContext` wraps it with a real RNG and
-a net for production use (interactive play without a TPU).
+a net for production use (interactive play without an accelerator).
 """
 from __future__ import annotations
 

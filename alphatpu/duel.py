@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from .mcts.newton import cdf_sample
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+from .mcts.tree import init_tree, reset_tree
 from .selfplay import broadcast_initial
 
 
@@ -42,8 +42,7 @@ def duel_half(game, net_apply, params_first, params_second, rng,
     G = cfg.num_games
     T = cfg.max_moves or game.max_game_length
     positions0 = broadcast_initial(game, G)
-    tree0 = init_tree(game, positions0, cfg.rollouts,
-                      stat_dtype=stat_dtype_for(cfg.rollouts))
+    tree0 = init_tree(game, positions0, cfg.rollouts)
     # both nets stacked on a leading axis: per round one dynamic slice
     # copies a single net instead of where-blending both full pytrees
     params_pair = jax.tree.map(

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from .duel import DuelConfig, duel_network
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+from .mcts.tree import init_tree, reset_tree
 from .selfplay import broadcast_initial
 
 
@@ -38,8 +38,7 @@ def _vs_random_half(game, net_apply, params, rng, positions0, cfg: EvalConfig,
     (diversity comes from the random opponent's stream)."""
     G = cfg.num_games
     T = cfg.max_moves or game.max_game_length
-    tree0 = init_tree(game, positions0, cfg.rollouts,
-                      stat_dtype=stat_dtype_for(cfg.rollouts))
+    tree0 = init_tree(game, positions0, cfg.rollouts)
 
     def move_body(carry, t):
         positions, done, result, tree, rng = carry

@@ -1,4 +1,4 @@
-"""Uniform game contract for the TPU engine.
+"""Uniform game contract for the batched engine.
 
 The reference exposes every game behind one module-level contract:
 immutable ``Position``; ``canPlay``, ``play``, ``isOver``; consts

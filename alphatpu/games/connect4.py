@@ -1,6 +1,6 @@
 """Connect-4 (6x7, gravity drop, 4-in-a-row).
 
-TPU-native equivalent of reference 4IARow.jl (105 LoC, Julia):
+The batched equivalent of reference 4IARow.jl (105 LoC, Julia):
 * 6 rows x 7 columns, column-major bits; stones stack from row 5 (bottom)
   toward row 0 - the reference's free-row scan (4IARow.jl:30-44) finds the
   largest prefix of empty rows, so the first stone in a column lands at the

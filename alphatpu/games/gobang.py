@@ -1,6 +1,6 @@
 """Gobang / N-in-a-row on an NxN board (TicTacToe is n=3, nvict=3).
 
-TPU-native equivalent of reference Gobang.jl (94 LoC, Julia):
+The batched equivalent of reference Gobang.jl (94 LoC, Julia):
 * action a = cell index (0-based, column-major: cell (r, c) -> r + n*c),
 * legal iff the cell is empty (Gobang.jl:25-27),
 * win test: nvict-1 iterated shift-ANDs of the just-moved player's stones in

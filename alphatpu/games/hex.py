@@ -1,7 +1,7 @@
 """Hex on an NxN board, embedded in an (N+1)x(N+1) bitboard with pre-filled
 border stones.
 
-TPU-native equivalent of reference Hex.jl (111 LoC, Julia):
+The batched equivalent of reference Hex.jl (111 LoC, Julia):
 * the first mover's border pre-fills column 0 rows 2..N; the second mover's
   border pre-fills row 0 cols 2..N (Hex.jl:22-33),
 * action a (0-based) with x = a // n, y = a % n lands on embedded cell

@@ -1,6 +1,6 @@
 """Reversi / Othello on 6x6 or 8x8 boards, with an explicit pass action.
 
-TPU-native equivalent of reference Reversi6x6.jl / Reversi8x8.jl (~195 LoC
+The batched equivalent of reference Reversi6x6.jl / Reversi8x8.jl (~195 LoC
 each, Julia):
 * bit-parallel legal-move generation by 8-direction candidate propagation
   (Reversi6x6.jl:26-40) - the reference's data-dependent `while` loops become

@@ -71,7 +71,7 @@ def make_engine(game, net_apply, rollouts: int, cpuct: float):
     in-graph ``init_tree`` allocation, no double zeroing.  First-move
     latency = one compile + one pool alloc; later moves reuse both."""
     from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+    from .mcts.tree import init_tree, reset_tree
 
     def choose_impl(params, pos, key, tree):
         positions = jax.tree.map(lambda l: l[None], pos)
@@ -89,8 +89,7 @@ def make_engine(game, net_apply, rollouts: int, cpuct: float):
     def choose(params, pos, key):
         if not pool:
             positions = jax.tree.map(lambda l: l[None], pos)
-            pool.append(init_tree(game, positions, rollouts,
-                                  stat_dtype=stat_dtype_for(rollouts)))
+            pool.append(init_tree(game, positions, rollouts))
         return jitted(params, pos, key, pool[0])
 
     return choose

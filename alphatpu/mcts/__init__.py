@@ -1,5 +1,5 @@
 from .newton import cdf_sample, regularized_policy  # noqa: F401
 from .search import backup, descend, expand, run_mcts  # noqa: F401
 from .tree import (  # noqa: F401
-    Tree, gather_node, gather_states, init_tree, reset_tree, stat_dtype_for,
+    Tree, gather_node, gather_states, init_tree, reset_tree,
 )

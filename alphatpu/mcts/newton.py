@@ -2,7 +2,7 @@
 
 The reference's per-thread scalar Newton iteration - the stated bottleneck
 of the whole system (README.md:81; kernel at mcts_gpu.jl:114-169,
-scalar twin fast_mcts.jl:42-70) - becomes one batched solve over ``[G, A]``:
+scalar twin fast_mcts.jl:42-70) - becomes one batched solve over ``[A, G]``:
 
     lambda = cpuct * sqrt(n) / (A + n),      n = 1 + sum_a visits[a]
     solve   sum_a lambda * p[a] / (alpha - q[a]) = 1   for alpha,
@@ -17,6 +17,12 @@ Convergence matches the reference per game: stop when ``S - 1 < 1e-3`` or
 the error repeats, with a hard cap of 100 steps; converged lanes freeze
 while the rest iterate, and the while_loop exits as soon as every lane is
 done (the typical case is < 10 steps).
+
+These functions are shared verbatim by the jnp walk (``search.descend``)
+and the GPU walk kernel (``walk_kernel``), so they use only primitives the
+Pallas Triton lowering supports: min/max/sum reductions (no ``all``/``any``
+reductions, no reversed slices).  Action rows padded with zeros (the
+kernel pads A to a power of two) change no result.
 """
 from __future__ import annotations
 
@@ -24,10 +30,8 @@ import jax
 import jax.numpy as jnp
 
 # 12 chunks x 8 unrolled steps = 96 max updates (~ the reference's 100-cap,
-# mcts_gpu.jl:141; convergence typically takes < 10).  Chunked unrolling is
-# the TPU-shaped form of the solve: XLA fuses each 8-step chunk into one
-# VPU kernel, and the while_loop exits after the first chunk in the common
-# case - versus one serialized device step per Newton iteration.
+# mcts_gpu.jl:141; convergence typically takes < 10).  The loop condition
+# is evaluated once per chunk, not once per Newton step.
 NEWTON_CHUNK = 8
 NEWTON_MAX_CHUNKS = 12
 NEWTON_TOL = 1e-3
@@ -52,8 +56,6 @@ def regularized_policy(prior, q, visits, cpuct):
     def step(st):
         alpha, prev_err, conv = st
         # one reciprocal + two multiplies instead of two [A, G] divides
-        # (divides are the expensive op in the inner loop; the kernel uses
-        # the identical formula so parity is preserved)
         r = 1.0 / (alpha[None, :] - q)
         frac = top * r
         s = frac.sum(0)
@@ -68,11 +70,11 @@ def regularized_policy(prior, q, visits, cpuct):
 
     def cond(st):
         (_, _, conv), j = st
-        return (j < NEWTON_MAX_CHUNKS) & ~jnp.all(conv)
+        return (j < NEWTON_MAX_CHUNKS) & (jnp.min(conv.astype(jnp.int32)) == 0)
 
     def body(st):
         inner, j = st
-        for _ in range(NEWTON_CHUNK):  # static unroll -> one fused kernel
+        for _ in range(NEWTON_CHUNK):  # static unroll
             inner = step(inner)
         return inner, j + 1
 
@@ -85,16 +87,29 @@ def regularized_policy(prior, q, visits, cpuct):
     return top / (alpha[None, :] - q)
 
 
+def node_policy(prior_row, wsum_row, visits_row, cpuct):
+    """Regularized policy for gathered node rows ([A, G] each): the Newton
+    solve on current stats, with the fresh-node shortcut - a node whose
+    edges have no visits samples its raw stored prior, exactly like the
+    reference's prior->policy copy at expansion (mcts_gpu.jl:297-299)."""
+    q_row = jnp.where(
+        visits_row > 0, wsum_row / jnp.maximum(visits_row, 1.0), 0.0
+    )
+    pi = regularized_policy(prior_row, q_row, visits_row, cpuct)
+    fresh = visits_row.sum(0) == 0.0  # [G]
+    return jnp.where(fresh[None, :], prior_row, pi)
+
+
 def cdf_sample(pi, prob):
     """Reference CDF walk (mcts_gpu.jl:172-182) over pi [A, G], prob [G]:
     pick the first action whose inclusive prefix sum reaches ``prob``; if
     the total mass is below ``prob``, fall back to the last action with
     positive probability."""
     num_actions = pi.shape[0]
+    aio = jax.lax.broadcasted_iota(jnp.int32, pi.shape, 0)
     csum = jnp.cumsum(pi, axis=0)
     positive = pi > 0
     reach = (csum >= prob[None, :]) & positive
-    first = jnp.argmax(reach, axis=0)
-    last_pos = (num_actions - 1) - jnp.argmax(positive[::-1], axis=0)
-    last_pos = jnp.where(positive.any(0), last_pos, 0)
-    return jnp.where(reach.any(0), first, last_pos).astype(jnp.int32)
+    first = jnp.min(jnp.where(reach, aio, num_actions), axis=0)
+    last_pos = jnp.max(jnp.where(positive, aio, 0), axis=0)
+    return jnp.where(first < num_actions, first, last_pos).astype(jnp.int32)

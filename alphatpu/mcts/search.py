@@ -1,14 +1,12 @@
 """Batched MCTS phases: select (regularized policy + descend) / expand / backup.
 
-TPU-native re-design of the reference's GPU kernels.  The reference runs one
-CUDA thread per game with divergent control flow (mcts_gpu.jl:100-199); TPUs
-have no per-lane divergence, so each phase is a *lockstep* array program over
-all games with active-lane masking, in the games-minor layout of
-:mod:`alphatpu.mcts.tree` (G fills the VPU lanes).
+A batched re-design of the reference's GPU kernels.  The reference runs
+one CUDA thread per game (mcts_gpu.jl:100-199); here each phase is a
+*lockstep* array program over all games with active-lane masking, in the
+games-minor layout of :mod:`alphatpu.mcts.tree`.
 
 Phase structure per rollout (a restructuring of the reference's
-descend/expand/backup for array hardware - identical semantics, very
-different data movement):
+descend/expand/backup for array programs - identical semantics):
 
 * **select**: a READ-ONLY walk from root to leaf.  At each depth the
   regularized policy of the current node - the Newton solve that is the
@@ -20,9 +18,11 @@ different data movement):
   stats only change via backup, and a fresh node (no visits) uses its raw
   prior in both schemes - so the cache never holds anything the recompute
   would not produce.  Dropping the cache removes two [A, V, G] arrays
-  (policy, uptodate) from both HBM traffic and memory.  The traversed path
+  (policy, uptodate) from memory and from every walk.  The traversed path
   is recorded as ``[D, G]`` edge lists; the root's policy falls out of the
-  depth-0 step (the reference's `copy_pol`, mcts_gpu.jl:330-339).
+  depth-0 step (the reference's `copy_pol`, mcts_gpu.jl:330-339).  On a GPU
+  the walk runs as one kernel (:mod:`alphatpu.mcts.walk_kernel`); the jnp
+  :func:`descend` is its reference and the CPU path.
 * **expand**: allocates at most one node per game (the reference allocates
   inside the walk, mcts_gpu.jl:183-191 - same ids, same order), then one
   batched legal-mask + prior write (mcts_gpu.jl:250-302).
@@ -34,25 +34,15 @@ different data movement):
 * the rollout loop is a ``lax.scan``; the NN evaluates all G leaves in one
   in-graph batch-major forward per rollout (mcts_gpu.jl:396-439) - no host
   syncs anywhere.
-
-On TPU with lane-aligned shapes, the whole per-rollout tree work runs as
-ONE fused VMEM-resident Pallas kernel: the previous rollout's expand/backup
-writes are deferred into the next rollout's select, whose streamed stat
-blocks are updated in VMEM and written back through aliasing
-(pallas_kernels.select_apply_pallas; see run_mcts's pipelined loop).  Per
-rollout the stats cross HBM exactly once in and once out, however deep the
-walks iterate.  The jnp versions below are the numerical reference and the
-CPU fallback.
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-from .newton import cdf_sample, regularized_policy
+from .newton import cdf_sample, node_policy
 from .tree import (
     Tree,
     child_lookup,
@@ -73,25 +63,6 @@ class Path(NamedTuple):
     nodes: jnp.ndarray  # i32[D, G]
     actions: jnp.ndarray  # i32[D, G]
     length: jnp.ndarray  # i32[G] - number of recorded edges
-
-
-def node_policy(prior_row, wsum_row, visits_row, cpuct):
-    """Regularized policy for gathered node rows ([A, G] each): the Newton
-    solve on current stats, with the fresh-node shortcut - a node whose
-    edges have no visits samples its raw stored prior, exactly like the
-    reference's prior->policy copy at expansion (mcts_gpu.jl:297-299).
-
-    Rows may arrive in the bf16 storage dtype (tree.stat_dtype_for); the
-    math always runs in f32, mirroring the kernels' load casts."""
-    prior_row = prior_row.astype(jnp.float32)
-    wsum_row = wsum_row.astype(jnp.float32)
-    visits_row = visits_row.astype(jnp.float32)
-    q_row = jnp.where(
-        visits_row > 0, wsum_row / jnp.maximum(visits_row, 1.0), 0.0
-    )
-    pi = regularized_policy(prior_row, q_row, visits_row, cpuct)
-    fresh = visits_row.sum(0) == 0.0  # [G]
-    return jnp.where(fresh[None, :], prior_row, pi)
 
 
 def descend(game, tree: Tree, probs, cpuct):
@@ -162,31 +133,22 @@ def descend(game, tree: Tree, probs, cpuct):
     return path, node, leaf_action, needs_alloc, root_pi
 
 
-def select(game, tree: Tree, probs, cpuct, vseg: int | None = None):
+def select(game, tree: Tree, probs, cpuct, reference_walk: bool = False):
     """One rollout's selection walk: returns
     ``(path, node, leaf_action, needs_alloc, root_pi)``.
 
-    On TPU with lane-aligned shapes the walk (with its per-depth Newton
-    solves) runs as ONE VMEM-resident Pallas kernel - one HBM read of the
-    stats per rollout; elsewhere the jnp :func:`descend` runs, which is the
-    numerical reference.  ``vseg`` bounds the kernel's streamed node rows
-    (see run_mcts's segmented rollout loop); the jnp path ignores it (rows
-    past the live span hold zeros that the walk never consumes)."""
-    from .pallas_kernels import select_pallas, select_supported
+    On a GPU backend the walk runs as one kernel
+    (:func:`alphatpu.mcts.walk_kernel.walk`), which raises for a tree shape
+    it cannot take; elsewhere, or when the caller asks for the
+    ``reference_walk``, the jnp :func:`descend` runs."""
+    if reference_walk or jax.default_backend() != "gpu":
+        return descend(game, tree, probs, cpuct)
+    from .walk_kernel import walk
 
-    if select_supported(tree.num_games, tree.num_nodes, tree.num_actions,
-                        tree.prior.dtype.itemsize):
-        pnodes, pactions, node, leaf_action, needs_alloc, root_pi = (
-            select_pallas(
-                tree.prior, tree.wsum, tree.visits, tree.parent,
-                tree.action_from, tree.expanded, probs, float(cpuct),
-                vseg=vseg,
-            )
-        )
-        path = Path(pnodes, pactions, (pnodes >= 0).sum(0).astype(jnp.int32))
-        return path, node, leaf_action, needs_alloc, root_pi
-
-    return descend(game, tree, probs, cpuct)
+    w = walk(tree.prior, tree.wsum, tree.visits, tree.parent,
+             tree.action_from, tree.expanded, probs, float(cpuct))
+    path = Path(w.nodes, w.actions, (w.nodes >= 0).sum(0).astype(jnp.int32))
+    return path, w.node, w.leaf_action, w.needs_alloc, w.root_pi
 
 
 def leaf_positions(game, tree: Tree, node, leaf_action, needs_alloc):
@@ -206,7 +168,7 @@ def leaf_positions(game, tree: Tree, node, leaf_action, needs_alloc):
 
 
 def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
-           prior_nn, training: bool, write_prior: bool = True):
+           prior_nn, training: bool):
     """Allocate the new children (same ids and order as the reference's
     in-walk `newindex` counter, mcts_gpu.jl:184), then write masked,
     normalized priors at each game's leaf; at the root during training mix
@@ -216,13 +178,9 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
     leaves keep zero priors and get expanded = False (mcts_gpu.jl:255-257).
 
     ``prior_nn``: [A, G].  Returns (tree, leaf, done, result, newp) where
-    ``newp`` [A, G] is the prior row written at each game's leaf.  With
-    ``write_prior=False`` the [A, V, G] prior array is left untouched and
-    the caller owes the write (the fused kernel pipeline defers it into
-    the next rollout's select; see run_mcts).
+    ``newp`` [A, G] is the prior row written at each game's leaf.
     """
     V = tree.num_nodes
-    A = tree.num_actions
 
     new = tree.next_idx
     slot_oh = node_onehot(V, new) & needs_alloc[None, :]
@@ -256,8 +214,7 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
 
     tree = tree._replace(
         expanded=scatter_node(tree.expanded, oh, ~done),
-        prior=(scatter_stat(tree.prior, oh, newp) if write_prior
-               else tree.prior),
+        prior=scatter_stat(tree.prior, oh, newp),
     )
     return tree, leaf, done, result, newp
 
@@ -274,41 +231,16 @@ def leaf_value_of(leaf_player, value_nn, done, result):
     )
 
 
-def backup(tree: Tree, path: Path, leaf_player, value_nn, done, result,
-           vseg: int | None = None, value_scale: int | None = None):
+def backup(tree: Tree, path: Path, leaf_player, value_nn, done, result):
     """Update every edge on the recorded path: per edge value-sum +=
     parity-flipped leaf value, visits += 1 (backUp, mcts_gpu.jl:306-328).
     The edge at depth d (leaf edge = depth len-1) receives
     ``1 - flip^(len-1-d)(leaf_value)``; since all path edges are distinct
-    tree edges, every update is an independent masked multiply-add.
-
-    On TPU the walk runs as a VMEM-resident Pallas kernel (one HBM
-    read/write of the stats per rollout instead of one per depth step);
-    the jnp while_loop below is the fallback and numerical reference.
-
-    ``value_scale`` quantizes the leaf value to the 1/scale grid before
-    backing it up - the bit-exact jnp twin of the packed-plane kernel's
-    fixed-point representation (pallas_kernels.pack_stats): on-grid
-    contributions make every f32 sum exact, so no other rounding exists
-    anywhere.  Only meaningful on the jnp path."""
-    from .pallas_kernels import backup_pallas, quantize_value, select_supported
-
+    tree edges, every update is an independent masked multiply-add."""
     V = tree.num_nodes
     A = tree.num_actions
     act_ids = jnp.arange(A)[:, None]
     leaf_value = leaf_value_of(leaf_player, value_nn, done, result)
-    if value_scale is not None:
-        leaf_value = quantize_value(leaf_value, value_scale)
-    if value_scale is None and select_supported(
-        tree.num_games, tree.num_nodes, tree.num_actions,
-        tree.prior.dtype.itemsize,
-    ):
-        wsum, visits = backup_pallas(
-            tree.wsum, tree.visits,
-            path.nodes, path.actions, path.length, leaf_value, vseg=vseg,
-        )
-        return tree._replace(wsum=wsum, visits=visits)
-
     max_len = jnp.max(path.length)
 
     def cond(st):
@@ -325,59 +257,14 @@ def backup(tree: Tree, path: Path, leaf_player, value_nn, done, result,
         oh = node_onehot(V, nodes) & valid[None, :]
         edge = (act_ids == actions[None, :])[:, None, :] & oh[None]
         hit = edge.astype(jnp.float32)
-        # f32 add, rounded to the storage dtype on write-back: each path
-        # edge is a distinct tree edge (one add per rollout), so this
-        # rounds exactly once per edge update - the same point the Pallas
-        # backup rounds at, keeping kernel-vs-jnp parity bit-exact even
-        # with bf16 storage (with quantized values the adds are exact).
-        sd = tree.wsum.dtype
-        new_w = tree.wsum.astype(jnp.float32) + hit * contrib[None, None, :]
         tree = tree._replace(
-            wsum=new_w.astype(sd),
-            visits=(tree.visits.astype(jnp.float32) + hit).astype(sd),
+            wsum=tree.wsum + hit * contrib[None, None, :],
+            visits=tree.visits + hit,
         )
         return tree, d + 1
 
     tree, _ = jax.lax.while_loop(cond, body, (tree, jnp.int32(0)))
     return tree
-
-
-class PendingUpdate(NamedTuple):
-    """One rollout's deferred stat writes, applied inside the next
-    rollout's fused select kernel (see run_mcts's pipelined loop)."""
-
-    nodes: jnp.ndarray  # i32[D, G] - recorded path (backup targets)
-    actions: jnp.ndarray  # i32[D, G]
-    length: jnp.ndarray  # i32[G]
-    value: jnp.ndarray  # f32[G] - leaf value to back up
-    leaf: jnp.ndarray  # i32[G] - node whose prior row gets written
-    newp: jnp.ndarray  # f32[A, G] - the prior row
-    write: jnp.ndarray  # bool[G] - False = no prior write (empty pending)
-
-
-def empty_pending(depth_cap: int, A: int, G: int) -> PendingUpdate:
-    """The no-op pending update fed to the first rollout's fused select."""
-    return PendingUpdate(
-        nodes=jnp.full((depth_cap, G), -1, jnp.int32),
-        actions=jnp.zeros((depth_cap, G), jnp.int32),
-        length=jnp.zeros((G,), jnp.int32),
-        value=jnp.zeros((G,), jnp.float32),
-        leaf=jnp.zeros((G,), jnp.int32),
-        newp=jnp.zeros((A, G), jnp.float32),
-        write=jnp.zeros((G,), bool),
-    )
-
-
-def backup_flush(tree: Tree, pend: PendingUpdate) -> Tree:
-    """Apply a pending update's backup adds directly (the post-scan flush
-    of the pipelined rollout loop)."""
-    from .pallas_kernels import backup_pallas
-
-    wsum, visits = backup_pallas(
-        tree.wsum, tree.visits, pend.nodes, pend.actions, pend.length,
-        pend.value,
-    )
-    return tree._replace(wsum=wsum, visits=visits)
 
 
 def run_mcts(
@@ -392,8 +279,7 @@ def run_mcts(
     training: bool,
     probs=None,
     final_root_policy: bool = False,
-    segment_rollouts: bool = True,
-    packed_stats: bool | int | None = None,
+    reference_walk: bool = False,
 ):
     """One full search over all games for the current move: ``rollouts`` x
     (select -> batched NN forward -> expand -> backup) as a lax.scan (the
@@ -410,145 +296,33 @@ def run_mcts(
     free strength knob the reference's stored-policy protocol could not
     afford - the root row is node 0, a static slice).
 
-    On the kernel path the rollout loop is PIPELINED: rollout r's stat
-    writes (the backup adds and the expanded leaf's prior row) are carried
-    as a pending update and applied inside rollout r+1's fused
-    select kernel, whose VMEM-resident blocks are written back through
-    aliasing (pallas_kernels.select_apply_pallas) - each rollout moves the
-    [A, V, G] stats through HBM exactly once in and once out, instead of
-    select-read + backup-read-write + a full jnp prior rewrite.  The last
-    rollout's pending update is flushed after the scan.  Identical math
-    and results; nothing reads the stats between a backup and the next
-    select in either schedule.
-
-    ``packed_stats`` selects the PACKED-plane production kernel
-    (pallas_kernels.select_apply_packed): (wsum, visits) live in one i32
-    plane as u16 fixed-point | u16 integer halves, cutting the walk's
-    dominant gather work and the per-rollout stat stream by a third and
-    collapsing the backup to one integer add.  Precision contract: visits
-    exact, wsum exact sums of leaf values quantized to the 1/value_scale
-    grid (1/512 at 64 rollouts) - the quantization is the scheme's only
-    rounding.  ``None`` (the default) = use it whenever the fused kernel
-    path is active, the tree stores f32 AND the tree is freshly reset
-    (``segment_rollouts=True``; disable with ALPHATPU_NO_PACK=1).  ``True``
-    on a kernel-less f32 backend runs the jnp twin with the identical
-    value quantization (backup's value_scale), so parity tests compare
-    bit-exactly; ``True`` on a pre-grown tree (``segment_rollouts=False``)
-    raises - the u16 halves only bound a single search's stats; ``True``
-    with bf16 stat storage is ignored (the packed plane is an f32-storage
-    design).
-
-    ``packed_stats=2`` selects the 1-PLANE representation
-    (pallas_kernels.select_apply_packed1): prior, wsum and visits all in
-    one i32 word (prior u11 | wsum fix | visits), halving the walk's
-    gathered planes versus the 2-plane form.  Additional quantization:
-    prior rows rounded to the 1/2048 grid at the write (quantize_prior);
-    the kernel-less twin applies the identical rounding, so parity stays
-    bit-exact.  Auto level under ``None`` is ALPHATPU_PACK (1 = 2-plane
-    default, 2 = 1-plane).
+    ``reference_walk=True`` runs the jnp :func:`descend` walk on every
+    backend (the GPU walk kernel's reference; see :func:`select`).
     """
-    import os
-
-    from .pallas_kernels import (
-        PACKED1_BLOCKS, pack1_stats, pack_stats, packed1_layout,
-        quantize_prior, quantize_value, select_apply_packed,
-        select_apply_packed1, select_apply_pallas, select_supported,
-        unpack1_prior, unpack1_visits, unpack1_wsum, unpack_visits,
-        unpack_wsum, value_scale,
-    )
-
     G = tree.num_games
-    A = tree.num_actions
-    V = tree.num_nodes
     depth_cap = min(game.max_game_length, tree.num_nodes)
     if probs is None:
-        keys = jax.random.split(rng, rollouts)
-        xs = keys
+        xs = jax.random.split(rng, rollouts)
         get_probs = lambda k: jax.random.uniform(k, (depth_cap, G))
     else:
         xs = probs
         get_probs = lambda p: p
 
-    fused = select_supported(G, V, A, tree.prior.dtype.itemsize)
-    f32_stats = tree.prior.dtype == jnp.float32
-    if packed_stats is None:
-        # auto: the packed plane additionally needs a freshly reset tree
-        # (see the guard below), which segment_rollouts=True declares.
-        # ALPHATPU_PACK picks the level (1 = 2-plane default, 2 = 1-plane;
-        # the 1-plane kernel's whole stat state is one plane, so its VMEM
-        # gate uses the leaner PACKED1_BLOCKS budget)
-        level = int(os.environ.get("ALPHATPU_PACK") or 1)
-        supported = (select_supported(G, V, A, 4,
-                                      budget_blocks=PACKED1_BLOCKS)
-                     if level >= 2 else fused)
-        packed_stats = (level if (supported and f32_stats and segment_rollouts
-                                  and not os.environ.get("ALPHATPU_NO_PACK"))
-                        else False)
-    elif packed_stats and not segment_rollouts:
-        # ``segment_rollouts=False`` is the caller's declaration of a
-        # pre-grown tree.  value_scale only bounds ONE search's per-edge
-        # (wsum * scale | visits) inside the u16 halves; chained searches
-        # without a reset can wrap past 2**16 after as few as two R=64
-        # searches and silently corrupt every downstream stat - refuse
-        # rather than corrupt.
-        raise ValueError(
-            "packed_stats=True requires a freshly reset tree "
-            "(segment_rollouts=True): the u16 fixed-point halves bound a "
-            "single search's visits/wsum only.  Search a pre-grown tree "
-            "with packed_stats=False (the f32 fused path, identical math)."
+    def body(carry, x):
+        tree, _ = carry
+        root_was_expanded = tree.expanded[0]  # [G]
+        path, node, leaf_action, needs_alloc, root_pi = select(
+            game, tree, get_probs(x), cpuct, reference_walk=reference_walk
         )
-    p_level = int(packed_stats) if packed_stats else 0  # True -> 1
-    packed = p_level == 1 and fused and f32_stats
-    packed1 = (p_level >= 2 and f32_stats and select_supported(
-        G, V, A, 4, budget_blocks=PACKED1_BLOCKS))
-    layout1 = packed1_layout(rollouts)
-    vscale = layout1[2] if p_level >= 2 else value_scale(rollouts)
-    # value_scale's contract: one fresh search fits the word's wsum field
-    assert not packed_stats or rollouts * vscale < (
-        1 << (layout1[1] if p_level >= 2 else 16))
-    # packed semantics without the kernel path: run the jnp twin with the
-    # identical leaf-value quantization (bit-exact CI reference - with
-    # on-grid values every f32 add is exact, see pallas_kernels.pack_stats)
-    # plus, at level 2, the identical prior-row quantization.
-    # Non-f32 (bf16) storage ignores packed_stats entirely: quantized
-    # emulation under the fused bf16 kernel would yield hybrid semantics
-    # matching neither the packed kernel nor the documented jnp twin.
-    emulate_packed = (p_level >= 1 and f32_stats
-                      and not packed and not packed1)
-    # level 2's prior quantization applies to the jnp twin's expand writes
-    prior_q = quantize_prior if p_level >= 2 and f32_stats else None
-    if emulate_packed:
-        w = tree.wsum.astype(jnp.float32)
-        tree = tree._replace(
-            wsum=(jnp.round(w * vscale) * (1.0 / vscale)
-                  ).astype(tree.wsum.dtype))
-
-    def nn_eval(tree, node, leaf_action, needs_alloc):
         leaf_states = leaf_positions(game, tree, node, leaf_action,
                                      needs_alloc)
         enc = jax.vmap(game.encode)(leaf_states)  # [G, in] - batch-major
         logits, v = net_apply(params, enc)
         prior = jax.nn.softmax(logits, axis=-1).T  # [A, G]
-        return leaf_states, prior, v
-
-    def body(carry, x, vseg=None):
-        tree, _ = carry
-        p = get_probs(x)
-        root_was_expanded = tree.expanded[0]  # [G]
-        path, node, leaf_action, needs_alloc, root_pi = select(
-            game, tree, p, cpuct, vseg=vseg
-        )
-        leaf_states, prior, v = nn_eval(tree, node, leaf_action, needs_alloc)
         tree, leaf, done, result, newp = expand(
             game, tree, node, leaf_action, needs_alloc, leaf_states, prior,
-            training, write_prior=prior_q is None,
+            training,
         )
-        if prior_q is not None:
-            # level-2 twin: the stored row is quantized (matching the
-            # kernel's u11 pack); newp itself stays full-precision for the
-            # rollout-1 root_pi below, exactly like the kernel path
-            tree = tree._replace(prior=scatter_stat(
-                tree.prior, node_onehot(V, leaf), prior_q(newp)))
         # When this rollout expanded the root itself (only possible on the
         # first rollout), the selection saw no policy; the stored-policy
         # reference would report the freshly written (noise-mixed) root
@@ -556,205 +330,11 @@ def run_mcts(
         # Lanes with an unexpanded root have leaf == root, so newp IS that
         # freshly written root row.
         root_pi = jnp.where(root_was_expanded[None, :], root_pi, newp)
-        tree = backup(
-            tree, path, leaf_states.player, v, done, result, vseg=vseg,
-            value_scale=vscale if emulate_packed else None,
-        )
+        tree = backup(tree, path, leaf_states.player, v, done, result)
         return (tree, root_pi), None
 
-    def fused_body(carry, x, vseg=None):
-        tree, _, pend = carry
-        p = get_probs(x)
-        root_was_expanded = tree.expanded[0]  # [G]
-        (prior2, wsum2, visits2, pnodes, pactions, node, leaf_action,
-         needs_alloc, root_pi) = select_apply_pallas(
-            tree.prior, tree.wsum, tree.visits, tree.parent,
-            tree.action_from, tree.expanded, p,
-            pend.nodes, pend.actions, pend.length, pend.value,
-            pend.leaf, pend.newp, pend.write, float(cpuct), vseg=vseg,
-        )
-        tree = tree._replace(prior=prior2, wsum=wsum2, visits=visits2)
-        path = Path(pnodes, pactions, (pnodes >= 0).sum(0).astype(jnp.int32))
-        leaf_states, prior, v = nn_eval(tree, node, leaf_action, needs_alloc)
-        tree, leaf, done, result, newp = expand(
-            game, tree, node, leaf_action, needs_alloc, leaf_states, prior,
-            training, write_prior=False,
-        )
-        root_pi = jnp.where(root_was_expanded[None, :], root_pi, newp)
-        pend = PendingUpdate(
-            nodes=path.nodes,
-            actions=path.actions,
-            length=path.length,
-            value=leaf_value_of(leaf_states.player, v, done, result),
-            leaf=leaf,
-            newp=newp,
-            write=jnp.ones((G,), bool),
-        )
-        return (tree, root_pi, pend), None
-
-    def fused_body_packed(carry, x, vseg=None):
-        """fused_body on the packed stat representation: the u32
-        (wsum | visits) plane travels beside the tree (whose wsum/visits
-        arrays are stale during the scan and rebuilt from the plane after
-        it)."""
-        tree, packed_arr, _, pend = carry
-        p = get_probs(x)
-        root_was_expanded = tree.expanded[0]  # [G]
-        (prior2, packed2, pnodes, pactions, node, leaf_action, needs_alloc,
-         root_pi) = select_apply_packed(
-            tree.prior, packed_arr, tree.parent, tree.action_from,
-            tree.expanded, p, pend.nodes, pend.actions, pend.length,
-            pend.value, pend.leaf, pend.newp, pend.write, float(cpuct),
-            scale=vscale, vseg=vseg,
-        )
-        tree = tree._replace(prior=prior2)
-        path = Path(pnodes, pactions, (pnodes >= 0).sum(0).astype(jnp.int32))
-        leaf_states, prior, v = nn_eval(tree, node, leaf_action, needs_alloc)
-        tree, leaf, done, result, newp = expand(
-            game, tree, node, leaf_action, needs_alloc, leaf_states, prior,
-            training, write_prior=False,
-        )
-        root_pi = jnp.where(root_was_expanded[None, :], root_pi, newp)
-        pend = PendingUpdate(
-            nodes=path.nodes,
-            actions=path.actions,
-            length=path.length,
-            # on the 1/vscale grid: the kernel's fixed-point adds and the
-            # f32 flush then agree exactly (the scheme's only rounding)
-            value=quantize_value(
-                leaf_value_of(leaf_states.player, v, done, result), vscale),
-            leaf=leaf,
-            newp=newp,
-            write=jnp.ones((G,), bool),
-        )
-        return (tree, packed2, root_pi, pend), None
-
-    def fused_body_packed1(carry, x, vseg=None):
-        """fused_body on the 1-plane (prior | wsum | visits) word: the
-        whole stat state is ONE i32 plane travelling beside the tree."""
-        tree, packed_arr, _, pend = carry
-        p = get_probs(x)
-        root_was_expanded = tree.expanded[0]  # [G]
-        (packed2, pnodes, pactions, node, leaf_action, needs_alloc,
-         root_pi) = select_apply_packed1(
-            packed_arr, tree.parent, tree.action_from,
-            tree.expanded, p, pend.nodes, pend.actions, pend.length,
-            pend.value, pend.leaf, pend.newp, pend.write, float(cpuct),
-            layout=layout1, vseg=vseg,
-        )
-        path = Path(pnodes, pactions, (pnodes >= 0).sum(0).astype(jnp.int32))
-        leaf_states, prior, v = nn_eval(tree, node, leaf_action, needs_alloc)
-        tree, leaf, done, result, newp = expand(
-            game, tree, node, leaf_action, needs_alloc, leaf_states, prior,
-            training, write_prior=False,
-        )
-        root_pi = jnp.where(root_was_expanded[None, :], root_pi, newp)
-        pend = PendingUpdate(
-            nodes=path.nodes,
-            actions=path.actions,
-            length=path.length,
-            # on the 1/vscale grid, as for the 2-plane form
-            value=quantize_value(
-                leaf_value_of(leaf_states.player, v, done, result), vscale),
-            leaf=leaf,
-            newp=newp,
-            write=jnp.ones((G,), bool),
-        )
-        return (tree, packed2, root_pi, pend), None
-
-    # Segmented rollout loop: node ids are allocation-ordered (root = 0,
-    # <= 1 new node per rollout), so rollout r only touches stat rows
-    # <= r.  Running the early rollouts with the kernels' streamed node
-    # span capped at V/4 then V/2 cuts the dominant HBM stream ~30% per
-    # move at zero math change.  Requires a freshly reset tree (every
-    # production caller resets before searching); pass
-    # ``segment_rollouts=False`` to search a pre-grown tree.
-    # vseg values must respect the stat blocks' sublane tile: 8 rows for
-    # f32 storage, 16 for bf16 (tree.stat_dtype_for)
-    tile = 32 // tree.prior.dtype.itemsize
-    segment = (
-        segment_rollouts
-        and V % (2 * tile) == 0
-        and rollouts == V
-        and probs is None
-    )
-    the_body = (fused_body_packed1 if packed1
-                else fused_body_packed if packed
-                else fused_body if fused else body)
-    if packed1:
-        # one plane carries everything; prior/wsum/visits are all dead
-        placeholder = jnp.zeros((0,), jnp.float32)
-        carry = (tree._replace(prior=placeholder, wsum=placeholder,
-                               visits=placeholder),
-                 pack1_stats(tree.prior, tree.wsum, tree.visits, layout1),
-                 jnp.zeros((A, G), jnp.float32),
-                 empty_pending(depth_cap, A, G))
-    elif packed:
-        # the f32 wsum/visits arrays are dead during the scan (the packed
-        # plane replaces them); carrying 0-sized placeholders instead keeps
-        # XLA from threading two full [A, V, G] buffers through the loop
-        placeholder = jnp.zeros((0,), jnp.float32)
-        carry = (tree._replace(wsum=placeholder, visits=placeholder),
-                 pack_stats(tree.wsum, tree.visits, vscale),
-                 jnp.zeros((A, G), jnp.float32),
-                 empty_pending(depth_cap, A, G))
-    elif fused:
-        carry = (tree, jnp.zeros((A, G), jnp.float32), empty_pending(
-            depth_cap, A, G))
-    else:
-        carry = (tree, jnp.zeros((A, G), jnp.float32))
-    if segment:
-        b1 = max(tile, -(-(V // 4) // tile) * tile)  # V/4 rounded to tile
-        bounds = tuple(dict.fromkeys((b1, V // 2, V)))
-        r0 = 0
-        for vseg in bounds:
-            seg_body = functools.partial(the_body, vseg=vseg)
-            carry, _ = jax.lax.scan(seg_body, carry, xs[r0:vseg])
-            r0 = vseg
-    else:
-        carry, _ = jax.lax.scan(the_body, carry, xs)
-    if packed1:
-        tree, packed_arr, root_pi, pend = carry
-        # rebuild the f32 stat arrays from the single plane, then flush
-        # the last rollout's deferred writes.  The flushed prior row is
-        # quantized (quantize_prior) - matching both the kernel's in-scan
-        # writes and the jnp twin's stored rows.
-        tree = tree._replace(
-            prior=scatter_stat(
-                unpack1_prior(packed_arr, layout1),
-                node_onehot(V, pend.leaf), quantize_prior(pend.newp),
-                mask=pend.write),
-            wsum=unpack1_wsum(packed_arr, layout1),
-            visits=unpack1_visits(packed_arr, layout1),
-        )
-        tree = backup_flush(tree, pend)
-    elif packed:
-        tree, packed_arr, root_pi, pend = carry
-        # rebuild the f32 stat arrays from the packed plane, then flush the
-        # last rollout's deferred writes.  pend.value is on the 1/vscale
-        # grid, so the flush's f32 adds equal the fixed-point adds the
-        # kernel would have applied - the final tree matches the jnp twin
-        # (backup value_scale=vscale) bit-exactly with no closing rounding.
-        tree = tree._replace(
-            wsum=unpack_wsum(packed_arr, vscale),
-            visits=unpack_visits(packed_arr),
-            prior=scatter_stat(
-                tree.prior, node_onehot(V, pend.leaf), pend.newp,
-                mask=pend.write),
-        )
-        tree = backup_flush(tree, pend)
-    elif fused:
-        tree, root_pi, pend = carry
-        # flush the last rollout's deferred writes; the scatter is gated on
-        # pend.write so a rollouts == 0 call (empty pending, leaf 0) does
-        # not zero the root's prior row of a pre-grown tree, matching the
-        # mask semantics of the kernel's apply phase
-        tree = tree._replace(prior=scatter_stat(
-            tree.prior, node_onehot(V, pend.leaf), pend.newp,
-            mask=pend.write))
-        tree = backup_flush(tree, pend)
-    else:
-        tree, root_pi = carry
+    (tree, root_pi), _ = jax.lax.scan(
+        body, (tree, jnp.zeros((tree.num_actions, G), jnp.float32)), xs)
     if final_root_policy:
         root_pi = node_policy(
             tree.prior[:, 0, :], tree.wsum[:, 0, :], tree.visits[:, 0, :],

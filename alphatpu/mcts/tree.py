@@ -1,21 +1,18 @@
 """Array-resident MCTS tree storage (struct-of-arrays, games-minor layout).
 
-TPU-native re-design of the reference's per-batch node pools
-(mcts_gpu.jl:35-51): every field is a dense device array with the *games
-axis minor* so G fills the 128-wide VPU lanes and every per-node
-select/update is a fused masked vector op.  Per-node scalars are ``[V, G]``
-(V = node capacity = rollouts per move); per-edge stats are ``[A, V, G]``
-(A = actions) - action-major so that (a) the regularized-policy solve
-reduces over the *leading* axis with no transposes and (b) the Pallas
-refresh kernel's per-action slices are contiguous (V, G) tiles on the
-(sublane, lane) grid.  The batch-major ``[G, V, A]`` alternative pads tiny
-A up to the 128-lane tile (measured 80x slower scatters on v5e); the NN
-boundary stays batch-major ``[G, features]`` as the MXU wants.
+A re-design of the reference's per-batch node pools (mcts_gpu.jl:35-51):
+every field is a dense device array with the *games axis minor*, so every
+per-node select/update is a fused masked vector op over all games and
+neighbouring games sit next to each other in memory.  Per-node scalars are
+``[V, G]`` (V = node capacity = rollouts per move); per-edge stats are
+``[A, V, G]`` (A = actions) - action-major so that the regularized-policy
+solve reduces over the *leading* axis with no transposes.  The NN boundary
+stays batch-major ``[G, features]``.
 
 Per-node game states are stored "transposed": a state leaf of single-game
-shape S lives as ``[V] + S + [G]`` so its own minor dims never hit the lane
-tile.  :func:`gather_states` / state scatters move the G axis back to the
-front for the vmapped game functions.
+shape S lives as ``[V] + S + [G]``, games minor like the stats.
+:func:`gather_states` / state scatters move the G axis back to the front
+for the vmapped game functions.
 
 Differences from the reference layout, by design:
 * ``childID [V, V, G]`` + ``Achild`` + ``childnbr`` (the O(V^2) indirection,
@@ -24,14 +21,13 @@ Differences from the reference layout, by design:
   ``parent`` + ``action_from`` scalars the tree already keeps -
   :func:`child_lookup` is a [V, G] match-and-reduce.  Dropping the
   explicit child table removes an entire [A, V, G] array from memory,
-  from select's per-rollout HBM read and from expand's per-rollout
+  from select's per-rollout read and from expand's per-rollout
   full-array rewrite (0 = no child; the root is node 0, never a child),
 * node ids are 0-based; a null parent is -1,
 * all selects/updates are one-hot masked ops, never serialized scatters.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, NamedTuple
 
 import jax
@@ -43,9 +39,9 @@ class Tree(NamedTuple):
     action_from: jnp.ndarray  # i32[V, G]
     expanded: jnp.ndarray  # bool[V, G]
     states: Any  # game-state pytree, leaves [V, *S, G]
-    prior: jnp.ndarray  # f32|bf16[A, V, G] (see stat_dtype_for)
-    wsum: jnp.ndarray  # f32|bf16[A, V, G] - per-edge backed-up value sum
-    visits: jnp.ndarray  # f32|bf16[A, V, G]
+    prior: jnp.ndarray  # f32[A, V, G]
+    wsum: jnp.ndarray  # f32[A, V, G] - per-edge backed-up value sum
+    visits: jnp.ndarray  # f32[A, V, G]
     next_idx: jnp.ndarray  # i32[G] - next free node slot
 
     @property
@@ -64,9 +60,8 @@ class Tree(NamedTuple):
     def q(self) -> jnp.ndarray:
         """Per-edge mean value (the reference stores this incrementally,
         mcts_gpu.jl:319; storing the sum makes backup divide-free)."""
-        w = self.wsum.astype(jnp.float32)
-        v = self.visits.astype(jnp.float32)
-        return jnp.where(v > 0, w / jnp.maximum(v, 1.0), 0.0)
+        v = self.visits
+        return jnp.where(v > 0, self.wsum / jnp.maximum(v, 1.0), 0.0)
 
 
 def _to_tree_layout(batched_leaf):
@@ -84,34 +79,10 @@ def node_onehot(num_nodes: int, node: jnp.ndarray) -> jnp.ndarray:
     return jnp.arange(num_nodes)[:, None] == node[None, :]
 
 
-def stat_dtype_for(rollouts: int):
-    """Stat-storage dtype for a search of ``rollouts`` node capacity.
-
-    bf16 storage is safe when every stored quantity stays exactly
-    representable (visit counts are integers <= rollouts, exact in bf16's
-    8-bit mantissa up to 256; V % 16 keeps the (16, 128) bf16 tile
-    alignment) and is kept as an opt-in measurement lever
-    (``ALPHATPU_BF16_STATS=1``) - but it is NOT the production default:
-    measured on TPU v5e it is ~16% SLOWER on hex7 (78.1k vs 93.0k
-    env-steps/s, same run conditions).  The select kernel is VPU-bound on
-    the one-hot stat gathers, not HBM-bound, and bf16 loads insert a
-    bf16->f32 convert per gathered element inside that inner loop.  The
-    production compression is instead the packed (wsum | visits) uint32
-    plane of pallas_kernels.select_apply_packed, which removes a whole
-    plane from the gather (3 -> 2) with zero convert instructions."""
-    if os.environ.get("ALPHATPU_BF16_STATS") and (
-        rollouts <= 256 and rollouts % 16 == 0
-    ):
-        return jnp.bfloat16
-    return jnp.float32
-
-
-def init_tree(game, positions, num_nodes: int, stat_dtype=jnp.float32) -> Tree:
+def init_tree(game, positions, num_nodes: int) -> Tree:
     """Allocate a tree pool with ``positions`` (a batched state pytree with
     leading axis [G]) installed as the roots (reference `init`/`create_roots`,
-    mcts_gpu.jl:42-53, 342-357).  ``stat_dtype`` is the storage dtype of the
-    [A, V, G] stat arrays (see :func:`stat_dtype_for`); all policy math
-    stays f32 regardless."""
+    mcts_gpu.jl:42-53, 342-357)."""
     G = positions.player.shape[0]
     V = num_nodes
     A = game.max_actions
@@ -126,9 +97,9 @@ def init_tree(game, positions, num_nodes: int, stat_dtype=jnp.float32) -> Tree:
         action_from=jnp.zeros((V, G), jnp.int32),
         expanded=jnp.zeros((V, G), bool),
         states=jax.tree.map(alloc_state, positions),
-        prior=jnp.zeros((A, V, G), stat_dtype),
-        wsum=jnp.zeros((A, V, G), stat_dtype),
-        visits=jnp.zeros((A, V, G), stat_dtype),
+        prior=jnp.zeros((A, V, G), jnp.float32),
+        wsum=jnp.zeros((A, V, G), jnp.float32),
+        visits=jnp.zeros((A, V, G), jnp.float32),
         next_idx=jnp.ones((G,), jnp.int32),
     )
 
@@ -211,14 +182,9 @@ def scatter_node(arr, onehot, val, mask=None):
     return jnp.where(sel, val[None], arr)
 
 
-def scatter_stat(arr, onehot, val, mask=None):
-    """arr [A, V, G] <- val [A, G] at each game's one-hot node.  ``val`` is
-    rounded to the storage dtype before the select (bf16 storage rounds at
-    the write, exactly like the kernels' store casts)."""
-    sel = onehot[None]
-    if mask is not None:
-        sel = sel & mask[None, None]
-    return jnp.where(sel, val.astype(arr.dtype)[:, None, :], arr)
+def scatter_stat(arr, onehot, val):
+    """arr [A, V, G] <- val [A, G] at each game's one-hot node."""
+    return jnp.where(onehot[None], val[:, None, :], arr)
 
 
 def scatter_states(states, onehot, new_states, mask=None):

@@ -1,6 +1,6 @@
 """AlphaZero residual MLP as a functional pytree.
 
-TPU-native equivalent of the reference's `ressimplesf` training net
+The equivalent of the reference's `ressimplesf` training net
 (DenseNet.jl:161-197) and its raw-array inference twin `snetwork2`
 (DenseNet.jl:279-316).  One parameter pytree serves both roles - there is no
 Flux->CuArray `convert_back` weight transfer (DenseNet.jl:331-341) because
@@ -15,9 +15,9 @@ Architecture (matching the reference exactly):
 * feature head: Dense(width -> fsize) with bias, tanh - training only
   (the auxiliary final-state prediction loss, train.jl:12-15)
 
-Weights are [in, out] so the games batch stays the leading (sublane) axis
-and every matmul maps straight onto the MXU.  Compute dtype is configurable:
-bf16 matmuls with f32 accumulation for inference speed, f32 for training.
+Weights are [in, out] so the games batch stays the leading axis of every
+matmul.  Compute dtype is configurable: bf16 matmuls with f32 accumulation
+(``--bf16-inference``) or f32 for inference, f32 for training.
 """
 from __future__ import annotations
 
@@ -56,12 +56,10 @@ def init_params(key, cfg: NetConfig, dtype=jnp.float32) -> Dict[str, Any]:
 
 def _trunk(params, x, compute_dtype):
     """Activations *stay* in compute_dtype through the tower (matmuls
-    accumulate in f32 on the MXU, outputs round back down).  With bf16 the
-    trunk moves half the HBM bytes per layer - measured ~1.9x matmul
-    throughput at the production [8192, 512] shape, where casting only the
-    dot inputs (f32 activations in memory) gains nothing because the TPU's
-    default matmul precision is already bf16-on-MXU, the analogue of the
-    reference's --math-mode=fast launch flag (README.md:23)."""
+    accumulate in f32, outputs round back down), so with bf16 the trunk
+    moves half the bytes per layer - the analogue of the reference's
+    --math-mode=fast launch flag (README.md:23).  Under the default matmul
+    precision an f32 product may itself run as TF32 on the GPU."""
     h = x.astype(compute_dtype)
     b = jax.nn.relu(
         jnp.dot(h, params["base"].astype(compute_dtype),

@@ -11,7 +11,7 @@ training path; here each is a small functional pytree that can be swapped
 into the engine via ``make_net`` (the search and learner only need the
 ``apply`` contract).
 
-TPU notes: convs run NHWC so XLA tiles them onto the MXU; the recurrent
+Convs run NHWC; the recurrent
 variant uses a ``lax.scan`` GRU (static trip count, no Python loops).
 """
 from __future__ import annotations
@@ -100,7 +100,7 @@ def make_conv_net(game, channels: int = 64, depth: int = 4):
     """(init, apply) for a conv-tower net on this game's board geometry.
     The board dims are static closure state (shapes must be static under
     jit); the plane encoding [mover cells; opponent cells] reshapes to
-    NHWC so XLA tiles the convolutions onto the MXU."""
+    NHWC."""
     rows = getattr(getattr(game, "spec", None), "rows", None) or game.n
     cols = getattr(getattr(game, "spec", None), "cols", None) or game.n
     A = game.max_actions

@@ -1,6 +1,7 @@
 from .mesh import (  # noqa: F401
     AXIS,
     device_keys,
+    emulated_train_epoch,
     make_mesh,
     sharded_duel_fn,
     sharded_duel_network,

@@ -1,11 +1,11 @@
 """Multi-chip scale-out: shard the games axis over a device mesh.
 
-The reference is single-process / single-GPU (SURVEY.md section 2.2); the
-TPU-native design shards selfplay games and duels over a 1-axis ``dp`` mesh
-with ZERO cross-chip traffic during search (each device owns its games,
-trees and replay-buffer shard), and runs the learner data-parallel with
-``psum`` gradient reduction over ICI.  Weight "broadcast" per generation is
-just the replicated-parameter sharding of the updated pytree.
+The reference is single-process / single-GPU (SURVEY.md section 2.2); here
+selfplay games and duels shard over a 1-axis ``dp`` mesh with ZERO
+cross-device traffic during search (each device owns its games, trees and
+replay-buffer shard), and the learner runs data-parallel with ``pmean``
+gradient reduction.  Weight "broadcast" per generation is just the
+replicated-parameter sharding of the updated pytree.
 
 Everything routes through ``shard_map`` so the exact single-device programs
 run unchanged on local shards; multi-host execution only needs
@@ -20,10 +20,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..buffer import ReplayBuffer
+from ..buffer import ReplayBuffer, buffer_size, sample_batch
 from ..duel import DuelConfig, duel_half
 from ..selfplay import SelfplayConfig, selfplay_continuous, selfplay_generation
-from ..train import TrainConfig, train_epoch
+from ..train import TrainConfig, loss_fn, train_epoch
 
 AXIS = "dp"
 
@@ -135,6 +135,41 @@ def sharded_train_fn(game, cfg: TrainConfig, optimizer, mesh: Mesh):
         )
 
     return run
+
+
+def emulated_train_epoch(params, opt_state, buffer: ReplayBuffer, rng,
+                         cfg: TrainConfig, optimizer, num_devices: int):
+    """The reference :func:`sharded_train_fn` is checked against: its
+    protocol replayed on one device.  Device d draws its local batch from
+    its own buffer shard with the key folded by d (then by the update
+    index), and the update applies the gradients averaged over devices.
+    Returns (params, opt_state, mean loss)."""
+    import optax
+
+    D = num_devices
+    per = buffer.capacity // D
+    shards = [
+        ReplayBuffer(*(leaf[d * per:(d + 1) * per] for leaf in buffer[:5]),
+                     buffer.cursor[d:d + 1], buffer.total[d:d + 1])
+        for d in range(D)
+    ]
+    nsamples = min(sum(int(buffer_size(s)) for s in shards), cfg.max_samples)
+    n_updates = max(nsamples // cfg.batch_size - 1, 1)
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn))
+    losses = []
+    for i in range(n_updates):
+        out = [
+            grad_fn(params, *sample_batch(
+                s, jax.random.fold_in(jax.random.fold_in(rng, d), i),
+                cfg.batch_size // D), cfg.feature_weight)
+            for d, s in enumerate(shards)
+        ]
+        losses.append(jnp.mean(jnp.stack([loss for loss, _ in out])))
+        gmean = jax.tree.map(lambda *gs: jnp.mean(jnp.stack(gs), axis=0),
+                             *[g for _, g in out])
+        updates, opt_state = optimizer.update(gmean, opt_state, params)
+        params = optax.apply_updates(params, updates)
+    return params, opt_state, jnp.mean(jnp.stack(losses))
 
 
 def sharded_duel_fn(game, net_apply, cfg: DuelConfig, mesh: Mesh):

@@ -567,7 +567,7 @@ def eval_vs_probe(game, net_apply, params, rng, probe=None, *,
 
     from .mcts.newton import cdf_sample
     from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+    from .mcts.tree import init_tree, reset_tree
     from .selfplay import broadcast_initial
 
     probe = probe or probe_for_game(game)
@@ -576,8 +576,7 @@ def eval_vs_probe(game, net_apply, params, rng, probe=None, *,
     host_rngs = [np.random.default_rng(seed * 100003 + i) for i in range(G)]
 
     positions = broadcast_initial(game, G)
-    tree0 = init_tree(game, positions, rollouts,
-                      stat_dtype=stat_dtype_for(rollouts))
+    tree0 = init_tree(game, positions, rollouts)
 
     @jax.jit
     def net_move(positions, k):

@@ -40,7 +40,7 @@ import jax.numpy as jnp
 from .buffer import ReplayBuffer, write_samples
 from .mcts.newton import cdf_sample
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+from .mcts.tree import init_tree, reset_tree
 
 
 class SelfplayConfig(NamedTuple):
@@ -151,8 +151,7 @@ def selfplay_generation(
     G = cfg.num_games
     T = cfg.max_moves or game.max_game_length
     positions0 = broadcast_initial(game, G)
-    tree0 = init_tree(game, positions0, cfg.rollouts,
-                      stat_dtype=stat_dtype_for(cfg.rollouts))
+    tree0 = init_tree(game, positions0, cfg.rollouts)
 
     def move_body(carry, t):
         positions, done, result, fin_t, illegal, tree, rng = carry
@@ -274,8 +273,7 @@ def selfplay_continuous(
     if carry is None:
         carry = make_carry(game, G, rng)
     positions0 = carry.positions
-    tree0 = init_tree(game, positions0, cfg.rollouts,
-                      stat_dtype=stat_dtype_for(cfg.rollouts))
+    tree0 = init_tree(game, positions0, cfg.rollouts)
 
     def move_body(carry, t):
         (positions, eid, ep_start, res_table, ftable, counters, illegal,

@@ -1,10 +1,14 @@
-"""bench.measure smoke: the driver-facing benchmark path must produce a
-well-formed result dict at tiny shapes on any backend."""
+"""bench.measure smoke: the benchmark path must produce a well-formed
+result dict at tiny shapes on any backend; bench.main refuses to report a
+number without a GPU."""
 import sys
 import os
 
+import pytest
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import bench  # noqa: E402
 from bench import measure  # noqa: E402
 
 
@@ -12,7 +16,7 @@ def test_measure_smoke():
     r = measure("tictactoe", games=128, rollouts=8, rounds=12)
     assert r["unit"] == "env-steps/s"
     assert r["value"] > 0
-    assert r["vs_baseline"] > 0
+    assert r["vs_baseline"] is None and "no H100 anchor" in r["anchor"]
     ex = r["extra"]
     assert abs(ex["rollouts_per_s"] - r["value"] * 8) < 8  # rounded fields
     assert ex["params"] > 0 and ex["net"] == "6x128"
@@ -31,3 +35,9 @@ def test_measure_chunked_same_counts():
             == single["extra"]["mean_game_length"])
     # identical seeds + chained carry => identical env-step totals
     assert chunked["extra"]["env_steps"] == single["extra"]["env_steps"]
+
+
+def test_main_refuses_cpu():
+    with pytest.raises(SystemExit) as exc:
+        bench.main()
+    assert "needs a GPU" in str(exc.value.code)

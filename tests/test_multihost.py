@@ -4,12 +4,12 @@ Spawns TWO OS processes that each call ``jax.distributed.initialize`` on a
 localhost coordinator (CPU backend, 2 local devices each), build one global
 4-device ``dp`` mesh and drive a full production generation - sharded
 continuous selfplay, psum'd data-parallel SGD, sharded gating duel -
-through the exact ``alphatpu.cli`` code path a TPU pod slice would use
-(one process per host, ``--devices 0``).
+through the exact ``alphatpu.cli`` code path a multi-host cluster would
+use (one process per host, ``--devices 0``).
 
 This is the mechanism-level evidence for the multi-host axis (SURVEY.md
 section 5 "distributed comm backend"): process bring-up, cross-process
-device visibility, Gloo/ICI collective wiring and the global-mesh sharded
+device visibility, Gloo collective wiring and the global-mesh sharded
 executors all compose.  Throughput scaling needs real hardware and is out
 of scope here.
 """

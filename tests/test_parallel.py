@@ -11,6 +11,7 @@ from alphatpu.games import make_game
 from alphatpu.nets import apply_inference, config_for_game, init_params
 from alphatpu.parallel import (
     device_keys,
+    emulated_train_epoch,
     make_mesh,
     sharded_duel_fn,
     sharded_selfplay_fn,
@@ -178,10 +179,6 @@ def test_sharded_train_equals_emulated_data_parallel(mesh):
     host-side emulation of the same protocol (per-device local batches from
     each shard with the same folded keys, gradients averaged) - the
     data-parallel path changes the math in no way."""
-    import optax
-
-    from alphatpu.train import loss_fn
-
     game = make_game("tictactoe")
     D = mesh.devices.size
     per = 64
@@ -199,30 +196,8 @@ def test_sharded_train_equals_emulated_data_parallel(mesh):
     rng = jax.random.key(7)
     sh_params, _, sh_loss = run(params, opt_state, buf, rng)
 
-    # ---- host emulation of train_epoch's axis_name path ----
-    local_batch = cfg.batch_size // D
-    n_updates = max((per * D) // cfg.batch_size - 1, 1)
-    em_params, em_opt = params, opt_state
-    state_np = np.asarray(buf.state, np.float32)
-    for i in range(n_updates):
-        grads_d = []
-        for d in range(D):
-            key_i = jax.random.fold_in(jax.random.fold_in(rng, d), i)
-            idx = jax.random.randint(key_i, (local_batch,), 0, per)
-            rows = np.asarray(idx) + d * per
-            _, g = jax.value_and_grad(loss_fn)(
-                em_params,
-                jnp.asarray(state_np[rows]),
-                buf.policy[rows], buf.value[rows],
-                buf.fstate[rows].astype(jnp.float32),
-                cfg.feature_weight,
-            )
-            grads_d.append(g)
-        gmean = jax.tree.map(
-            lambda *gs: jnp.mean(jnp.stack(gs), axis=0), *grads_d
-        )
-        updates, em_opt = optimizer.update(gmean, em_opt, em_params)
-        em_params = optax.apply_updates(em_params, updates)
+    em_params, _, _ = emulated_train_epoch(
+        params, opt_state, buf, rng, cfg, optimizer, D)
 
     for k in params:
         np.testing.assert_allclose(
@@ -232,7 +207,7 @@ def test_sharded_train_equals_emulated_data_parallel(mesh):
 
 
 def test_production_pipeline_sharded_generation(mesh):
-    """VERDICT #1: `run_generation` itself (not hand-assembled pieces) runs
+    """`run_generation` itself (not hand-assembled pieces) runs
     sharded over the mesh - two full generations via PipelineConfig(devices=D),
     exactly what `python -m alphatpu.cli --devices D` executes."""
     from alphatpu.pipeline import PipelineConfig, init_pipeline, run_generation
@@ -271,7 +246,7 @@ def test_production_pipeline_sharded_generation(mesh):
 
 
 def test_sharded_carry_resume_exact(mesh, tmp_path):
-    """VERDICT r4 missing #4: a MULTI-DEVICE resume continues in-flight
+    """A MULTI-DEVICE resume continues in-flight
     episodes exactly, like single-device.  Run a sharded continuous
     generation whose round bound leaves lanes mid-episode, checkpoint it,
     reload through the same [D, *key_data] rng template the CLI builds for
